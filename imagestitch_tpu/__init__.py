@@ -1,6 +1,6 @@
-"""imagestitch_tpu — a TPU-native micrograph stitching framework.
+"""imagestitch_tpu — an accelerator-native micrograph stitching framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the VFSMS pipeline (Ma et al.,
+A from-scratch JAX/XLA rebuild of the VFSMS pipeline (Ma et al.,
 Comput. Mater. Sci. 158:1-13, 2019; reference implementation
 Keep-Passion/ImageStitch): batched FFT phase-correlation and feature
 registration with incremental ROI search, seven fusion modes, canvas

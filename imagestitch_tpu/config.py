@@ -1,4 +1,4 @@
-"""Frozen configuration for the TPU-native stitching engine.
+"""Frozen configuration for the stitching engine.
 
 Mirrors every knob of the reference's mutable class-attribute config block
 (reference: ImageUtility.py:7-50, Stitcher.py:25-33, Main.py:5-14) as one
@@ -25,7 +25,7 @@ class FeatureConfig:
     """Feature detection / description / matching knobs.
 
     Parity with reference ImageUtility.py:14-40 (SURF/ORB parameter block).
-    The TPU detector is a determinant-of-Hessian (SURF-family) or FAST-score
+    The detector is a determinant-of-Hessian (SURF-family) or FAST-score
     (ORB-family) response computed as batched convolutions, with fixed-capacity
     top-K keypoints so every shape is static under jit.
     """
@@ -67,14 +67,6 @@ class FeatureConfig:
                                        # reference behavior.
     octave_topk_decay: int = 4         # per-octave keypoint budget divisor
                                        # (see ops/features/detect.DetectParams)
-    fused_select: bool = True          # TPU pooled path: fuse candidate
-                                       # selection + subpixel into the Pallas
-                                       # DoH kernel (per-row top-R structural
-                                       # capacity) and describe via the
-                                       # band-streaming atlas kernel — every
-                                       # XLA top-k/gather at k~6k costs ms on
-                                       # the v5e (ops/pallas/doh.doh_select).
-                                       # False: round-3 approx_max_k pool.
     orb_n_features: int = 5000         # ImageUtility.py:31
     orb_scale_factor: float = 1.2      # ImageUtility.py:32
     orb_n_levels: int = 8              # ImageUtility.py:33
@@ -100,7 +92,7 @@ class StitchConfig:
     """Top-level engine configuration.
 
     Every reference knob appears here; additional fields configure the
-    TPU-native execution (batching, sharding, solver) that the serial
+    batched execution (batching, sharding, solver) that the serial
     reference lacks.
     """
     # --- registration strategy -------------------------------------------------
@@ -139,7 +131,7 @@ class StitchConfig:
                                        # composition; sub-pixel chain refinement
     solver_iters: int = 0              # 0 = auto (2 * n_tiles)
 
-    # --- TPU execution ---------------------------------------------------------
+    # --- device execution ----------------------------------------------------
     # changelog: the round-1 ``canvas_block`` field was removed — the sharded
     # composer derives its row-block size from the mesh (rows / n_devices),
     # so a user-set block edge had nothing left to control.
@@ -150,13 +142,11 @@ class StitchConfig:
                                        # owns + a fused-rect-only readback;
                                        # color composes host-side with the
                                        # CPU-backend fusion kernels (zero
-                                       # color bytes cross the link).  Wins
-                                       # when the host<->device link is thin;
-                                       # default off (full readback).
+                                       # color bytes cross the link).
+                                       # Default off (full readback).
     compute_dtype: str = "float32"     # detector conv/response dtype
-                                       # ("bfloat16" halves response-map HBM
-                                       # traffic; FFTs always run float32)
-    use_pallas: bool = True            # enable Pallas kernels where profitable
+                                       # ("bfloat16" halves response-map
+                                       # memory traffic; FFTs run float32)
     phase_hbm_budget: int = 2 << 30    # per-chip budget for the whole-image
                                        # phase path's padded FFT working set;
                                        # with a mesh, over-budget pairs route

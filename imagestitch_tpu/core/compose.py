@@ -5,10 +5,10 @@ sentinel, rebasing every previously-placed image whenever a cumulative offset
 goes non-positive (reference: Stitcher.py:369-486).  That design transiently
 allocates ~0.7 GB for the 90-image dendritic grid and runs serial Python.
 
-TPU-native redesign:
+Batched redesign:
   * placement is pure integer bookkeeping on the host (exact reference
     semantics, including the running-max occupancy quirk of rangeX/rangeY);
-  * the canvas is allocated ONCE at its final size as an int16 HBM buffer
+  * the canvas is allocated ONCE at its final size as an int16 device buffer
     (sentinel -1 preserved, 4x smaller than the reference's int64), and
   * pastes + overlap fusion run on device; identical rect shapes share one
     compiled program.

@@ -5,7 +5,7 @@ rotating the search direction and growing the ROI until a confident match
 (reference: Stitcher.py:205-258 for the phase path, :306-367 for the feature
 path), persisting the successful direction across pairs (Stitcher.py:361).
 
-TPU-first redesign: attempts are evaluated for the WHOLE pair batch in one
+Batched redesign: attempts are evaluated for the WHOLE pair batch in one
 device dispatch per (direction, scale) configuration — at most
 ``4 * max_scale`` dispatches per sequence instead of one host round trip per
 attempt — and the reference's sequential decision procedure is replayed

@@ -141,7 +141,7 @@ def overlap_ncc(a: np.ndarray, b: np.ndarray,
 def ncc_argmax_sweep(a: np.ndarray, b: np.ndarray,
                      candidates: List[Tuple[int, int]], radius: int = 4
                      ) -> Tuple[Optional[Tuple[int, int]], Optional[float]]:
-    """Exhaustive integer-NCC adjudication (VERDICT r3 item 3).
+    """Exhaustive integer-NCC adjudication.
 
     Evaluates overlap NCC at EVERY integer offset within ``radius`` px
     (Chebyshev) of each candidate and returns (argmax_offset, argmax_ncc) —
@@ -204,7 +204,7 @@ class DatasetAccuracy:
     pair_detail: Optional[List[dict]] = None
     # exhaustive-NCC adjudication over disputed pairs (ours != golden):
     # of those, how many have OUR offset == the NCC argmax over the +-4 px
-    # neighborhood of both candidates vs the golden (VERDICT r3 item 3)
+    # neighborhood of both candidates vs the golden
     disputed_pairs: Optional[int] = None
     disputed_ours_argmax: Optional[int] = None
     disputed_golden_argmax: Optional[int] = None
@@ -321,7 +321,7 @@ def run(demo_root: str = "/root/reference/demoImages",
     return out
 
 
-# Detector-mode columns for the side-by-side table (VERDICT r2 item 5):
+# Detector-mode columns for the side-by-side table:
 #   default    — Gaussian-derivative DoH, auto-upright fast path (the
 #                production defaults the bench runs);
 #   box_filter — the reference detector's ACTUAL integral-image SURF box

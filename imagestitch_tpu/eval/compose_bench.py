@@ -1,10 +1,10 @@
 """Composition throughput: single-device vs sharded canvas.
 
-Publishes the sharded-compose frames/s number VERDICT r1 item 4 asked for.
+Publishes the sharded-compose frames/s number.
 On the virtual CPU mesh the absolute numbers validate the code path and its
 dispatch structure (virtual devices share one host, so wall-clock is not a
-hardware-efficiency claim; the report marks the backend) — on real pods the
-same harness produces the BASELINE metric.
+hardware-efficiency claim; the report marks the backend) — on several
+accelerators the same harness measures the real speed-up.
 """
 from __future__ import annotations
 
@@ -36,15 +36,10 @@ class ComposeBench:
     sharded_fuse_psums: int = 0     # collectives: ONE psum per fused image
     host_cores: int = 0
     note: str = ""
-    # quantitative ICI model (eval/ici_model.py; VERDICT r3 item 4):
-    # int16 psum payload bytes per panorama, per-device ring traffic, and
-    # the efficiency that traffic predicts on real v5e links at several D
-    # given the stated single-device compose time
+    # int16 psum payload bytes per panorama and the ring all-reduce
+    # traffic through each device (parallel/compose_sharded.py)
     psum_payload_bytes: int = 0
-    modeled_ici_bytes_per_device: int = 0
-    predicted_efficiency_v5e: Optional[List[dict]] = None
-    t1_device_s: float = 0.0
-    t1_source: str = ""
+    modeled_bytes_per_device: int = 0
 
 
 def _serpentine(rng, n_rows=4, n_cols=6, h=256, w=320):
@@ -64,8 +59,7 @@ def _serpentine(rng, n_rows=4, n_cols=6, h=256, w=320):
 
 def run(images: Optional[np.ndarray] = None, offsets=None,
         n_devices: int = 8, fuse_method: str = "fadeInAndFadeOut",
-        repeats: int = 3, t1_device_s: Optional[float] = None,
-        t1_source: str = "") -> ComposeBench:
+        repeats: int = 3) -> ComposeBench:
     if images is None:
         rng = np.random.default_rng(0)
         images, offsets = _serpentine(rng)
@@ -97,14 +91,6 @@ def run(images: Optional[np.ndarray] = None, offsets=None,
                 f"share the cores: ~{n_devices}/{cores}x oversubscription in "
                 f"the sharded wall-clock); the dispatch/psum counts are the "
                 f"hardware-independent overhead evidence")
-    from . import ici_model
-    payload = int(LAST_COMPOSE_STATS.get("psum_payload_bytes", 0))
-    n_psum = int(LAST_COMPOSE_STATS.get("fuse_psums", 0))
-    t1 = t1_device_s or bs
-    pred = ici_model.efficiency_table(
-        t1, [2, 4, 8, 16],
-        bytes_fn=lambda d: ici_model.ring_all_reduce_bytes(payload, d),
-        n_collectives_fn=lambda d: n_psum)
     return ComposeBench(
         backend=jax.default_backend(), n_frames=n,
         image_shape=list(images.shape[1:]), canvas_shape=[rows, cols],
@@ -112,15 +98,12 @@ def run(images: Optional[np.ndarray] = None, offsets=None,
         single_fps=round(n / bs, 2), sharded_fps=round(n / bh, 2),
         n_devices=n_devices,
         sharded_dispatches=int(LAST_COMPOSE_STATS.get("dispatches", 0)),
-        sharded_fuse_psums=n_psum,
+        sharded_fuse_psums=int(LAST_COMPOSE_STATS.get("fuse_psums", 0)),
         host_cores=cores, note=note,
-        psum_payload_bytes=payload,
-        modeled_ici_bytes_per_device=int(
-            LAST_COMPOSE_STATS.get("modeled_ici_bytes_per_device", 0)),
-        predicted_efficiency_v5e=pred,
-        t1_device_s=round(t1, 4),
-        t1_source=t1_source or f"single-device compose on this run's "
-                               f"{jax.default_backend()} backend")
+        psum_payload_bytes=int(LAST_COMPOSE_STATS.get("psum_payload_bytes",
+                                                      0)),
+        modeled_bytes_per_device=int(
+            LAST_COMPOSE_STATS.get("modeled_bytes_per_device", 0)))
 
 
 def _time(f) -> float:

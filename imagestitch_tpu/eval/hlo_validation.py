@@ -1,11 +1,11 @@
-"""ICI-bytes model validation against COMPILED HLO (VERDICT r4 item 8).
+"""Collective-bytes model validation against COMPILED HLO.
 
-The scaling evidence rests on the analytic ICI model (eval/ici_model.py):
-modeled per-device collective bytes -> predicted v5e efficiency.  This
-module closes the loop the model itself left open: for the three sharded
-subsystems (feature registration step, canvas compose fuse scan, pose-graph
-CG solve), it compiles the ACTUAL program at several mesh widths, parses
-every collective instruction's payload shape out of the HLO
+The sharded subsystems are designed around an analytic model of the bytes
+each collective moves.  This module checks that model against what XLA
+actually compiles: for the three sharded subsystems (feature registration
+step, canvas compose fuse scan, pose-graph CG solve), it compiles the
+ACTUAL program at several mesh widths, parses every collective
+instruction's payload shape out of the HLO
 (utils/hlo.collective_bytes_from_text), and compares the model's assumed
 payload bytes with the compiled ones.
 
@@ -14,8 +14,9 @@ Notes on accounting:
     while_loop bodies compile once but execute per step — the comparison is
     therefore per-collective-payload (the model's input), with the trip
     counts stated alongside, not a wall-clock byte total.
-  * The virtual CPU mesh compiles the same SPMD partitioning as TPU; only
-    codegen differs, so payload shapes are hardware-independent evidence.
+  * The virtual CPU mesh compiles the same SPMD partitioning as an
+    accelerator mesh; only codegen differs, so payload shapes are
+    hardware-independent evidence.
 """
 from __future__ import annotations
 
@@ -177,7 +178,8 @@ def run(device_counts=(2, 4, 8)) -> List[Row]:
 def main(out_path: Optional[str] = None):
     rows = run()
     payload = {
-        "what": "ICI model payloads vs compiled-HLO collective payloads",
+        "what": "modeled collective payloads vs compiled-HLO collective "
+                "payloads",
         "backend": jax.default_backend(),
         "rows": [dataclasses.asdict(r) for r in rows],
     }

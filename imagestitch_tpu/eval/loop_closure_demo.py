@@ -1,6 +1,6 @@
 """Dendritic-grid drift eval: chain vs solver + loop closure.
 
-BASELINE follow-up for VERDICT r1 item 6: on the serpentine dendritic demo,
+BASELINE follow-up: on the serpentine dendritic demo,
 registration chains 88 offsets; row-to-row drift accumulates (the
 reference's prefix-sum weakness, Stitcher.py:404-405).  Loop-closure edges
 measure the true offsets between vertically-overlapping tiles of adjacent
@@ -48,7 +48,7 @@ def run(demo_root: str = "/root/reference/demoImages",
         name: str = "dendriticCrystal", subset=None,
         downsample: int = 1) -> DriftReport:
     """``subset``: optional (start, end) frame range; ``downsample``: integer
-    block-mean factor (CPU-test speed; the committed TPU artifact runs
+    block-mean factor (CPU-test speed; the committed artifact runs
     full-resolution, downsample=1)."""
     files = dataset.list_project_images(os.path.join(demo_root, name), 1)
     if subset is not None:

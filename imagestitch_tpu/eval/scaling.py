@@ -1,10 +1,10 @@
 """Scaling-efficiency harness (BASELINE: frames/s at 1 chip / N devices).
 
 Measures the data-parallel registration step's throughput versus mesh size.
-On real pods the numbers are the BASELINE scaling-efficiency metric; on the
-virtual CPU mesh the harness validates the sharded code path end-to-end
-(virtual-device wall clock is NOT a hardware efficiency claim — chips share
-the host CPU — so the report marks the backend).
+On several accelerators the numbers are the scaling-efficiency metric; on
+the virtual CPU mesh the harness validates the sharded code path end-to-end
+(virtual-device wall clock is NOT a hardware efficiency claim — virtual
+devices share the host CPU — so the report marks the backend).
 """
 from __future__ import annotations
 
@@ -27,12 +27,6 @@ class ScalingPoint:
     efficiency_vs_1: float
     collectives: Optional[Dict[str, int]] = None   # compiled-HLO op counts
     dispatches_per_step: int = 1
-    # quantitative ICI model (eval/ici_model.py): bytes each device moves
-    # over ICI per step, and the efficiency that traffic predicts on REAL
-    # v5e links given the stated single-chip step time — the virtual-mesh
-    # wall clock validates the code path, this predicts the hardware
-    modeled_ici_bytes_per_device: Optional[int] = None
-    predicted_efficiency_v5e: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -44,25 +38,16 @@ class ScalingReport:
     points: List[ScalingPoint]
     host_cores: Optional[int] = None
     note: str = ""
-    # source of the single-chip step time feeding predicted_efficiency_v5e
-    t1_device_s: Optional[float] = None
-    t1_source: str = ""
 
 
 def run(images: Optional[np.ndarray] = None, device_counts=None,
         direction: int = 1, ratio: float = 0.25, repeats: int = 3,
-        mode: str = "phase",
-        t1_device_s: Optional[float] = None,
-        t1_source: str = "") -> ScalingReport:
+        mode: str = "phase") -> ScalingReport:
     """Throughput vs mesh size for one registration sweep.
 
     mode = "phase" (FFT pair registration) or "feature" (the flagship:
     frame-sharded detect/describe + halo'd matching + mode vote).
-    ``t1_device_s``: single-chip step seconds measured on REAL hardware,
-    feeding the predicted v5e efficiency (defaults to this run's 1-device
-    time — correct on TPU, structural-only on the virtual CPU mesh).
     """
-    from . import ici_model
     cfg = None
     if images is None:
         rng = np.random.default_rng(0)
@@ -111,7 +96,6 @@ def run(images: Optional[np.ndarray] = None, device_counts=None,
         fps = n / best
         if fps1 is None:
             fps1 = fps
-            t1_s = best
         colls = None
         if mode == "phase":
             from ..utils import hlo
@@ -121,28 +105,10 @@ def run(images: Optional[np.ndarray] = None, device_counts=None,
         else:
             colls = pipeline.feature_step_collectives(
                 images, mesh, cfg=cfg, direction=direction, ratio=ratio)
-        # ICI bytes model (eval/ici_model.py): phase moves only the three
-        # (P,)-float output all-gathers; feature (r5 explicit-halo
-        # shard_map step) moves ONLY one frame's selected B-side strip
-        # features per shard boundary — rows f32 + cols f32 + valid pred +
-        # descs f32[k_sel, D] — outputs stay sharded (validated against
-        # compiled HLO at 2/4/8 devices: eval/hlo_validation.py)
-        n_pairs_g = n - 1
-        if mode == "phase":
-            out_bytes = 3 * n_pairs_g * 4
-            b_dev = ici_model.ring_all_gather_bytes(out_bytes, d)
-        else:
-            k_sel = 256 if cfg else 1024
-            desc_dim = 128
-            b_dev = k_sel * (4 + 4 + 1 + desc_dim * 4)
-        n_coll = int((colls or {}).get("total", 3))
         points.append(ScalingPoint(
             n_devices=d, frames_per_s=round(fps, 2),
             efficiency_vs_1=round(fps / (fps1 * d), 3),
-            collectives=colls, dispatches_per_step=1,
-            modeled_ici_bytes_per_device=int(b_dev),
-            predicted_efficiency_v5e=round(ici_model.predicted_efficiency(
-                t1_device_s if t1_device_s else t1_s, d, b_dev, n_coll), 4)))
+            collectives=colls, dispatches_per_step=1))
     import os as _os
     cores = _os.cpu_count()
     note = ""
@@ -157,11 +123,7 @@ def run(images: Optional[np.ndarray] = None, device_counts=None,
                 f"collectives are three (P,)-vector output all-gathers)")
     return ScalingReport(backend=jax.default_backend(), mode=mode,
                          n_frames=n, image_shape=list(images.shape[1:]),
-                         points=points, host_cores=cores, note=note,
-                         t1_device_s=round(t1_device_s or t1_s, 4),
-                         t1_source=t1_source or
-                         f"1-device step time measured on this run's "
-                         f"{jax.default_backend()} backend")
+                         points=points, host_cores=cores, note=note)
 
 
 def main():

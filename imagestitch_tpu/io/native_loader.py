@@ -1,18 +1,24 @@
 """ctypes bridge to the native runtime (native/stitch_runtime.cpp).
 
 This is the framework's equivalent of the reference's C++ bridge layer
-(reference: appendix/conversion.cpp numpy<->Mat), reoriented for TPU use:
-the native side produces exactly the contiguous uint8 batch that crosses the
-host->HBM boundary, decoded by a thread pool instead of the reference's
-serial per-image cv2.imdecode (Stitcher.py:68-69, :400-403).
+(reference: appendix/conversion.cpp numpy<->Mat), reoriented for
+accelerator use: the native side produces exactly the contiguous uint8
+batch that crosses the host->device boundary, decoded by a thread pool
+instead of the reference's serial per-image cv2.imdecode (Stitcher.py:68-69,
+:400-403).
 
-Auto-builds with make on first use; degrades silently to the pure-Python
-decoder when the toolchain or libjpeg is unavailable.
+Builds with make on first use, into ``native/build/<key>/``, where the key
+hashes the sources and what ``-march=native`` means to this host's
+compiler: a library built on another kind of CPU, or from other sources,
+is never loaded.  Degrades to the pure-Python decoder when the toolchain
+or libjpeg is unavailable.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import List, Optional, Sequence
@@ -21,39 +27,68 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libstitch_runtime.so")
+_SO_NAME = "libstitch_runtime.so"
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_error: Optional[str] = None     # why the runtime is unavailable
 
 
-def _build() -> bool:
+def so_path() -> Optional[str]:
+    """Where this host's build of the current sources lives; None without
+    a C++ compiler."""
+    h = hashlib.sha256()
+    for name in ("stitch_runtime.cpp", "Makefile"):
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=120)
-        return os.path.exists(_SO_PATH)
-    except Exception:
+        target = subprocess.run(
+            [os.environ.get("CXX", "g++"), "-march=native", "-Q",
+             "--help=target"], check=True, capture_output=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        global _error
+        _error = f"no usable C++ compiler: {e}"
+        return None
+    h.update(target.stdout)
+    key = f"{platform.machine()}-{h.hexdigest()[:16]}"
+    return os.path.join(_NATIVE_DIR, "build", key, _SO_NAME)
+
+
+def _build(path: str) -> bool:
+    """Compile to a private name, then rename: concurrent processes never
+    load a half-written library."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR, f"OUT={tmp}"], check=True,
+                       capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError) as e:
+        global _error
+        err = getattr(e, "stderr", b"") or b""
+        _error = f"build failed: {e} {err.decode(errors='replace')[-300:]}"
         return False
+    os.replace(tmp, path)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     """Load (building if needed) the native runtime; None if unavailable."""
-    global _lib, _tried
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        # the binary is NOT tracked in git (r4 hygiene): always invoke make
-        # (a no-op when up to date, and the staleness check when the source
-        # changed); keep an existing .so if the toolchain is unavailable
-        if not _build() and not os.path.exists(_SO_PATH):
+        path = so_path()
+        if path is None or (not os.path.exists(path) and not _build(path)):
             return None
         try:
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = ctypes.CDLL(path)
             lib.isr_version.restype = ctypes.c_int
-            if lib.isr_version() != 2:
+            if lib.isr_version() != 3:
+                _error = f"{path}: version {lib.isr_version()}, want 3"
                 return None
+            lib.isr_has_jpeg.restype = ctypes.c_int
             lib.isr_probe.argtypes = [ctypes.c_char_p,
                                       ctypes.POINTER(ctypes.c_int),
                                       ctypes.POINTER(ctypes.c_int)]
@@ -97,13 +132,25 @@ def get_lib() -> Optional[ctypes.CDLL]:
             lib.isr_finalize16.argtypes = [i16p, u8p, ctypes.c_longlong,
                                            ctypes.c_int]
             _lib = lib
-        except OSError:
+        except OSError as e:
+            _error = f"load failed: {e}"
             return None
         return _lib
 
 
+def unavailable_reason() -> Optional[str]:
+    """Why ``get_lib()`` returned None (None while it has not)."""
+    return _error
+
+
 def _is_jpeg(path: str) -> bool:
     return os.path.splitext(path)[1].lower() in (".jpg", ".jpeg")
+
+
+def has_jpeg() -> bool:
+    """Whether the native runtime exists and was built with libjpeg."""
+    lib = get_lib()
+    return lib is not None and lib.isr_has_jpeg() == 1
 
 
 class NativeLoader:
@@ -114,11 +161,11 @@ class NativeLoader:
         self.threads = threads or max(2, os.cpu_count() or 2)
 
     def available(self) -> bool:
-        return get_lib() is not None
+        return has_jpeg()
 
     def read_all(self, files: Sequence[str], color: bool) -> List[np.ndarray]:
         lib = get_lib()
-        if lib is None or not all(_is_jpeg(f) for f in files):
+        if not has_jpeg() or not all(_is_jpeg(f) for f in files):
             from . import codec
             return [codec.imread(f, color) for f in files]
         h = ctypes.c_int()
@@ -142,7 +189,7 @@ class NativeLoader:
 def probe_dims(path: str) -> Optional[tuple]:
     """(H, W) of an image from its header — no full decode."""
     lib = get_lib()
-    if lib is not None and _is_jpeg(path):
+    if has_jpeg() and _is_jpeg(path):
         h = ctypes.c_int()
         w = ctypes.c_int()
         if lib.isr_probe(path.encode(), ctypes.byref(h),

@@ -64,7 +64,7 @@ def pooled_features_pipelined(files: Sequence[str], cfg,
     """
     from ..core import feature_registration as freg
 
-    # cold-start overlap (VERDICT r4 item 7): AOT-compile the LATE
+    # cold-start overlap: AOT-compile the LATE
     # programs — the tail-chunk pool and the replay's first attempt sweep —
     # while the main-chunk pool compiles on the dispatch path and the
     # chunks decode/upload.  (Warming the main chunk's own program is
@@ -101,8 +101,7 @@ def _warm_pool_programs_async(files: Sequence[str], cfg,
     programs: the tail-chunk pool and the replay's first attempt sweep.
     XLA compiles release the GIL, so this genuinely overlaps libjpeg
     decode, H2D, and the main chunk's dispatch-path compile; results reach
-    the dispatch path through the persistent compilation cache (measured:
-    a 25 s fresh-process pool compile reused in 3.7 s)."""
+    the dispatch path through the persistent compilation cache."""
     import jax
 
     from ..core import feature_registration as freg
@@ -126,10 +125,8 @@ def _warm_pool_programs_async(files: Sequence[str], cfg,
                 struct = jax.ShapeDtypeStruct((ln,) + shape, jnp.uint8)
                 freg._pool_features_jit.lower(
                     struct, freg._capacity(cfg, cfg.features.pool_keypoints),
-                    freg._detect_params(cfg), freg._describe_params(cfg),
-                    use_pallas_doh=(cfg.use_pallas
-                                    and jax.default_backend() == "tpu"),
-                    fused_select=cfg.features.fused_select).compile()
+                    freg._detect_params(cfg),
+                    freg._describe_params(cfg)).compile()
             except Exception:
                 return   # warmup is best-effort; the real call compiles
 
@@ -179,8 +176,7 @@ def _warm_replay(files, cfg, shape, n):
             # cache entry the runtime call never hits
             jax.ShapeDtypeStruct((), f32, weak_type=True),
             jax.ShapeDtypeStruct((), f32, weak_type=True),
-            cfg.offset_calculate,
-            cfg.use_pallas and jax.default_backend() == "tpu").compile()
+            cfg.offset_calculate).compile()
     except Exception:
         pass   # warmup is best-effort; the real call compiles
 

@@ -1,10 +1,10 @@
 """Contrast enhancement: histogram equalization and CLAHE.
 
-TPU-native replacements for the reference's optional preprocessing
+Batched replacements for the reference's optional preprocessing
 (reference: Stitcher.py:269-276, :327-334 — cv2.equalizeHist /
 cv2.createCLAHE with clipLimit/tileGridSize from ImageUtility.py:47-50).
 
-Histograms are built with one-hot matmuls (MXU-friendly, no scatter storms);
+Histograms are built with one-hot matmuls (matmul-friendly, no scatter storms);
 CLAHE interpolates per-tile LUTs bilinearly, matching OpenCV's scheme (clip,
 uniform redistribution, half-tile-centered interpolation grid).
 """
@@ -54,7 +54,7 @@ def clahe(image: jnp.ndarray, clip_limit: float = 20.0, tiles: int = 5
     """Contrast-limited adaptive histogram equalization.
 
     (H, W) uint8 -> uint8; ``tiles`` x ``tiles`` grid (reference tileSize=5).
-    EXACT cv2.createCLAHE semantics (opencv clahe.cpp; VERDICT r3 weak #7):
+    EXACT cv2.createCLAHE semantics (opencv clahe.cpp):
     REFLECT_101 padding to whole tiles, INTEGER clip limit
     max(int(clipLimit*area/256), 1), integer excess redistribution
     (uniform floor + stride-walked residual, leftover dropped), LUT =

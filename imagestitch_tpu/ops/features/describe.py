@@ -1,6 +1,6 @@
 """Batched local descriptors at fixed capacity.
 
-TPU-native analogs of the reference's descriptor families
+Batched analogs of the reference's descriptor families
 (reference: ImageUtility.py:255-264 SIFT/SURF/ORB via OpenCV;
 appendix/myGpuFeatures.cpp:77-118 CUDA):
 
@@ -8,7 +8,7 @@ appendix/myGpuFeatures.cpp:77-118 CUDA):
   * "surf-extended" / "sift" — 128-d sign-split / orientation-binned variants
   * "orb"   — BRIEF-style intensity comparisons over the ``patch_size``
     window (ImageUtility.py:37), ``wta_k``-way (ImageUtility.py:36); bits
-    are float {0,1} so Hamming matching rides the MXU.
+    are float {0,1} so Hamming matching is one matmul.
 
 All are computed as one patch-slice gather per keypoint + register-resident
 math — no per-keypoint host loops, fully batched over (P, K).
@@ -67,11 +67,11 @@ def _patch_gather(image: jnp.ndarray, rows: jnp.ndarray, cols: jnp.ndarray,
     """(K, size, size) windows centered on each (rounded) keypoint.
 
     One ``lax.gather`` in SLICE mode: each keypoint fetches ``size``
-    contiguous row segments instead of size*size scalar elements — TPU
-    gathers are transaction-bound, so this is ~10x faster than
-    advanced-indexing the same windows.  CLIP mode clamps the slice start
-    so out-of-range (padded/garbage) keypoints read an in-bounds window;
-    detection's border suppression keeps real keypoints interior.
+    contiguous row segments instead of size*size scalar elements, so the
+    gather moves rows rather than single elements.  CLIP mode clamps the
+    slice start so out-of-range (padded/garbage) keypoints read an
+    in-bounds window; detection's border suppression keeps real keypoints
+    interior.
     """
     r0 = jnp.round(rows).astype(jnp.int32) - margin
     c0 = jnp.round(cols).astype(jnp.int32) - margin
@@ -174,7 +174,7 @@ def _dominant_orientation(patch: jnp.ndarray) -> jnp.ndarray:
     """cv2-SURF dominant orientation per patch (K, G, G) -> (K,) radians.
 
     Exact algorithm shape (reference analog: ImageUtility.py:255-264's
-    cv2 SURF; VERDICT r4 missing item 2): Haar x/y responses at the
+    cv2 SURF): Haar x/y responses at the
     radius-6 sigma-grid circle samples, Gaussian-weighted (sigma 2.5),
     then a sliding pi/3 window over 5-degree starts; the window whose
     summed response vector has the largest norm gives the angle.
@@ -211,8 +211,10 @@ def _dominant_orientation(patch: jnp.ndarray) -> jnp.ndarray:
     d = ang[:, None, :] - starts[None, :, None]
     d = jnp.where(d < 0, d + 2 * jnp.pi, d)
     m = (d < _ORI_WIN).astype(jnp.float32)       # (K, W, S)
-    sx = jnp.einsum("kws,ks->kw", m, X)
-    sy = jnp.einsum("kws,ks->kw", m, Y)
+    # HIGHEST precision: TF32 would round the Haar sums to 10 mantissa
+    # bits and can flip the argmax between neighbouring orientation windows
+    sx = jnp.einsum("kws,ks->kw", m, X, precision=jax.lax.Precision.HIGHEST)
+    sy = jnp.einsum("kws,ks->kw", m, Y, precision=jax.lax.Precision.HIGHEST)
     best = jnp.argmax(sx * sx + sy * sy, axis=-1)
     bx = jnp.take_along_axis(sx, best[:, None], axis=-1)[:, 0]
     by = jnp.take_along_axis(sy, best[:, None], axis=-1)[:, 0]

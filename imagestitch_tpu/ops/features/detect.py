@@ -1,6 +1,6 @@
 """Batched keypoint detection.
 
-TPU-native replacement for the reference's OpenCV detector calls
+Batched replacement for the reference's OpenCV detector calls
 (reference: ImageUtility.py:248-276 detectAndDescribe; CUDA variants
 appendix/myGpuFeatures.cpp:67-146).  Two response families:
 
@@ -8,7 +8,7 @@ appendix/myGpuFeatures.cpp:67-146).  Two response families:
     octave pyramid (mean-pool 2x per octave, ``n_octave_layers`` sigmas per
     octave; reference knobs ImageUtility.py:24-25).  The response is either
     a bank of separable Gaussian-derivative convolutions (determinant of
-    Hessian; dense, fused, MXU/VPU-friendly) or, with ``box_filter``, the
+    Hessian; dense and fused) or, with ``box_filter``, the
     reference detector's actual integral-image SURF box filters
     (Bay et al.; what cv2.xfeatures2d.SURF computes) for closer bit-parity.
   * "corner" (ORB parity) — the true FAST-9 segment test (16-point Bresenham
@@ -329,10 +329,8 @@ def level_budget(max_kp: int, level: int, scale_factor: float,
 def _pool2(x: jnp.ndarray) -> jnp.ndarray:
     """2x2 mean pool on (..., H, W) (H, W truncated to even).
 
-    reduce_window, not reshape-mean: splitting the lane dimension by 2 in
-    a reshape lowers to relayouts that cost 6 ms/frame on 5 MP v5e inputs;
-    the windowed reduction runs the same math at 1.6 ms/frame (r5
-    measurement — the pyramid downsample was ~60% of pool time)."""
+    reduce_window, not reshape-mean: one windowed reduction with no
+    reshape of the minor dimension."""
     h2 = (x.shape[-2] // 2) * 2
     w2 = (x.shape[-1] // 2) * 2
     x = x[..., :h2, :w2]

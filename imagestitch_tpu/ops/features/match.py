@@ -1,17 +1,17 @@
-"""Batched descriptor matching on the MXU.
+"""Batched descriptor matching as matrix products.
 
-TPU-native replacement for the reference's brute-force matchers
+Batched replacement for the reference's brute-force matchers
 (reference: ImageUtility.py:278-309 BruteForce kNN + Lowe ratio / Hamming;
 CUDA analog appendix/myGpuFeatures.cpp:148-195).
 
 The all-pairs L2 distance matrix is computed with the matmul identity
 ``|a-b|^2 = |a|^2 + |b|^2 - 2 a.b`` — one (K,D)x(D,K) contraction per pair
-feeding the 128x128 systolic array — and Hamming distance uses the same
-identity on {0,1} bit vectors (``ham = |a| + |b| - 2 a.b``), so BOTH metric
-families ride the MXU instead of scalar XOR/popcount loops.
+— and Hamming distance uses the same identity on {0,1} bit vectors
+(``ham = |a| + |b| - 2 a.b``), so BOTH metric families are one GEMM each
+instead of scalar XOR/popcount loops.
 
-Top-2 selection is two masked row minima (cheaper than a general top-k on
-the VPU).  All shapes fixed at capacity K; invalid slots are masked.
+Top-2 selection is two masked row minima (cheaper than a general top-k).
+All shapes fixed at capacity K; invalid slots are masked.
 """
 from __future__ import annotations
 
@@ -27,15 +27,25 @@ _BIG = 3.4e38
 
 
 def _pairwise_sq_l2(da: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
-    """(Ka, D), (Kb, D) -> (Ka, Kb) squared L2, MXU contraction."""
-    ab = jnp.dot(da, db.T, preferred_element_type=jnp.float32)
+    """(Ka, D), (Kb, D) -> (Ka, Kb) squared L2 via one contraction.
+
+    HIGHEST precision: descriptors are unit-norm, so |a|^2 + |b|^2 ~ 2 while
+    good matches have d^2 << 1.  A TF32 product (10-bit mantissa, the GPU's
+    default for f32 matmuls) errs by ~1e-3 in a.b — the size of the
+    distances the 0.75 ratio test compares — and would flip matches.
+    """
+    ab = jnp.dot(da, db.T, preferred_element_type=jnp.float32,
+                 precision=jax.lax.Precision.HIGHEST)
     na = jnp.sum(da * da, axis=-1, keepdims=True)
     nb = jnp.sum(db * db, axis=-1, keepdims=True)
     return jnp.maximum(na + nb.T - 2.0 * ab, 0.0)
 
 
 def _pairwise_hamming(da: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
-    """{0,1} float bit vectors -> Hamming distance via the matmul identity."""
+    """{0,1} float bit vectors -> Hamming distance via the matmul identity.
+
+    Default precision is exact here: {0,1} operands are representable in
+    TF32 and the products are summed in f32."""
     ab = jnp.dot(da, db.T, preferred_element_type=jnp.float32)
     na = jnp.sum(da, axis=-1, keepdims=True)
     nb = jnp.sum(db, axis=-1, keepdims=True)
@@ -83,53 +93,31 @@ def match_nearest_hamming(da: jnp.ndarray, db: jnp.ndarray,
     return i0, ok
 
 
-@functools.partial(jax.jit, static_argnames=("metric", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("metric",))
 def match_batch_coords(da: jnp.ndarray, db: jnp.ndarray,
                        valid_a: jnp.ndarray, valid_b: jnp.ndarray,
                        rows_b: jnp.ndarray, cols_b: jnp.ndarray,
                        ratio: float, max_distance: float,
-                       metric: str = "l2", use_pallas: bool = False):
+                       metric: str = "l2"):
     """match_batch + matched train keypoint COORDINATES per query.
 
-    Returns (train_idx, ok, rb_sel, cb_sel), each (P, K).  On the Pallas
-    path the coordinates are extracted inside the matcher kernel (masked
-    lane reductions over the VMEM distance tile); per-element
-    ``rows_b[train_idx]`` gathers cost ~140 ns each on the v5e, which made
-    them the vote stage's dominant term (measured r4).
+    Returns (train_idx, ok, rb_sel, cb_sel), each (P, K).
     """
-    if metric == "l2" and use_pallas and da.shape[1] % 256 == 0:
-        from ..pallas import matcher as pallas_matcher
-
-        return jax.vmap(lambda a, b, va, vb, rb, cb:
-                        pallas_matcher.match_ratio_pallas_coords(
-                            a, b, va, vb, rb, cb, ratio))(
-            da, db, valid_a, valid_b, rows_b, cols_b)
     ti, ok = match_batch(da, db, valid_a, valid_b, ratio, max_distance,
-                         metric, use_pallas=False)
+                         metric)
     rb_sel = jnp.take_along_axis(rows_b, ti, axis=-1)
     cb_sel = jnp.take_along_axis(cols_b, ti, axis=-1)
     return ti, ok, rb_sel, cb_sel
 
 
-@functools.partial(jax.jit, static_argnames=("metric", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("metric",))
 def match_batch(da: jnp.ndarray, db: jnp.ndarray,
                 valid_a: jnp.ndarray, valid_b: jnp.ndarray,
-                ratio: float, max_distance: float, metric: str = "l2",
-                use_pallas: bool = False
+                ratio: float, max_distance: float, metric: str = "l2"
                 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """vmap over the pair axis: (P, K, D) descriptors -> (P, K) matches.
-
-    ``use_pallas`` routes L2 matching through the fused VMEM-resident
-    distance+top-2 kernel (ops/pallas/matcher.py) — TPU only, K % 256 == 0.
-    """
+    """vmap over the pair axis: (P, K, D) descriptors -> (P, K) matches."""
     if metric == "l2":
-        if use_pallas and da.shape[1] % 256 == 0:
-            from ..pallas import matcher as pallas_matcher
-
-            f = lambda a, b, va, vb: pallas_matcher.match_ratio_pallas(
-                a, b, va, vb, ratio)
-        else:
-            f = lambda a, b, va, vb: match_ratio(a, b, va, vb, ratio)
+        f = lambda a, b, va, vb: match_ratio(a, b, va, vb, ratio)
     else:
         f = lambda a, b, va, vb: match_nearest_hamming(a, b, va, vb,
                                                        max_distance)

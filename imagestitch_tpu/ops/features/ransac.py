@@ -7,7 +7,7 @@ truncated translation column of H:
 ``[dx, dy] = [-int(H[1,2]), -int(H[0,2])]`` plus an ``adjustH`` copy of H
 with the translation and projective terms zeroed (ImageUtility.py:203-208).
 
-TPU-native re-design (everything batched over the pair axis, static
+Batched re-design (everything batched over the pair axis, static
 shapes, no host round trips):
 
   * hypotheses: ``N_ITERS`` random 4-match minimal samples per pair, drawn
@@ -108,10 +108,14 @@ def _refit_dlt(px, py, qx, qy, weight) -> jnp.ndarray:
                     -qyn * pxn, -qyn * pyn, -qyn], axis=-1)
     a = jnp.concatenate([ru * weight[..., None], rv * weight[..., None]],
                         axis=0)                              # (2K, 9)
-    ata = a.T @ a
+    # HIGHEST precision: the smallest eigenvector of A^T A is the DLT
+    # solution, and TF32 products (10-bit mantissa, the GPU's default for
+    # f32 matmuls) perturb it enough to move the truncated translation.
+    hi = jax.lax.Precision.HIGHEST
+    ata = jnp.matmul(a.T, a, precision=hi)
     _, vecs = jnp.linalg.eigh(ata)
     h = vecs[:, 0].reshape(3, 3)                             # smallest eig
-    h_full = jnp.linalg.solve(tq, h @ tp)                    # denormalize
+    h_full = jnp.linalg.solve(tq, jnp.matmul(h, tp, precision=hi))
     scale = jnp.where(jnp.abs(h_full[2, 2]) < 1e-12, 1e-12, h_full[2, 2])
     return h_full / scale
 

@@ -1,6 +1,6 @@
 """Displacement voting: 2-D mode and translation RANSAC.
 
-Exact TPU-native semantics of the reference's registration decision rule
+Exact batched semantics of the reference's registration decision rule
 ``getOffsetByMode`` (reference: ImageUtility.py:139-178):
 
   * per-match displacement (drow, dcol) = int-truncated keypoint difference
@@ -61,8 +61,7 @@ def _mode_vote_one(d_row: jnp.ndarray, d_col: jnp.ndarray, valid: jnp.ndarray
     # reference: empty displacement list -> single (0,0) vote (count 1).
     # ``any_valid`` is returned alongside so callers can tell this floor
     # apart from a GENUINE 1-vote mode (the two are indistinguishable from
-    # ``n`` alone; conflating them mis-gated the oriented fallback — r4
-    # advisor finding).
+    # ``n`` alone; conflating them mis-gates the oriented fallback).
     drow = jnp.where(any_valid, drow, 0)
     dcol = jnp.where(any_valid, dcol, 0)
     n = jnp.where(any_valid, n, 1)
@@ -109,8 +108,8 @@ def displacement_from_matches_f(rows_a, cols_a, rows_b, cols_b, train_idx):
 
 
 def displacement_from_coords(rows_a, cols_a, rb_sel, cb_sel, valid):
-    """Displacements from PRE-EXTRACTED matched coordinates (the Pallas
-    matcher's coords outputs) — pure arithmetic, no per-match gathers."""
+    """Displacements from PRE-EXTRACTED matched coordinates
+    (match.match_batch_coords) — pure arithmetic, no per-match gathers."""
     d_row = (rows_a - rb_sel).astype(jnp.int32)
     d_col = (cols_a - cb_sel).astype(jnp.int32)
     return d_row, d_col, valid

@@ -1,6 +1,6 @@
 """Fusion kernels: average / maximum / minimum / fade / trigonometric.
 
-TPU-native, vectorized replacements for the reference's fusers
+Vectorized replacements for the reference's fusers
 (reference: ImageFusion.py:12-41 simple fusers, :192-244 fade, :246-293
 trigonometric) and the pre-fill + dispatch semantics of ``fuseImage``
 (reference: Stitcher.py:488-525).

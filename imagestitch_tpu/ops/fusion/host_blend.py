@@ -3,7 +3,7 @@
 The reference blends through numpy float64 (weight matrices are np.ones
 defaults and the blend promotes through float64, ImageFusion.py:85-94,
 :241-243); the device kernels run float32 (a documented ±1-LSB divergence
-on a tiny pixel fraction, measured 5e-5 on TPU — docs/ARCHITECTURE.md).
+on a tiny pixel fraction — docs/ARCHITECTURE.md).
 This module is the float64 path: vectorized numpy mirrors of the fusion
 kernels, used by the streamed-output color composer
 (core/stream_out.compose_color_host) where the blend runs host-side anyway

@@ -1,6 +1,6 @@
 """Gaussian/Laplacian pyramids and multi-band blending.
 
-TPU-native conv/resize chains replacing the reference's cv2 pyramid engine
+Batched conv/resize chains replacing the reference's cv2 pyramid engine
 (reference: ImageFusion.py:296-374).  pyrDown/pyrUp use the classic 5-tap
 binomial kernel with reflect-101 borders, matching cv2 away from a 2-pixel
 border band (cv2's pyrUp border scheme differs slightly; validated in tests).

@@ -1,6 +1,6 @@
 """Optimal-seam-line fusion.
 
-TPU-native replacement for the reference's seam suite
+Batched replacement for the reference's seam suite
 (reference: ImageFusion.py:377-492): the per-pixel Python energy loop becomes
 vectorized ops, the row-by-row DP becomes a ``lax.scan`` with a vectorized
 3-neighbor transition, and the backtrack is a second scan.  The reference's

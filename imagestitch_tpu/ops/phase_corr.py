@@ -1,6 +1,6 @@
 """Batched FFT phase correlation.
 
-TPU-native replacement for the reference's per-attempt
+Batched replacement for the reference's per-attempt
 ``cv2.phaseCorrelate(np.float64(roiA), np.float64(roiB))`` call
 (reference: Stitcher.py:230) and the vestigial GPU-FFT path
 (reference: Stitcher.py:184-203, whose ``self.phase`` module is missing).
@@ -13,8 +13,9 @@ after the caller's int() truncation:
   4. peak + 5x5 weighted centroid (sub-pixel), response = window mass / (M*N),
   5. shift = center - centroid.
 
-Differences from the reference by design: float32 instead of float64 (TPU has
-no native f64; validated to < 1e-2 px vs cv2 in tests), and the whole pair
+Differences from the reference by design: float32 instead of float64 (GPU
+float64 runs at a fraction of the float32 rate; validated to < 1e-2 px vs
+cv2 in tests), and the whole pair
 batch runs in ONE device dispatch (vmap over pairs) instead of one host
 round-trip per attempt.
 """

@@ -5,7 +5,7 @@ Exact semantics of the reference's ``getROIRegionForIncreMethod``
 ``s``, the "first" image contributes the strip facing the second image and
 vice versa; strip length is ``floor(dim * s)``.
 
-TPU-first shape discipline: the strip length depends only on the *static*
+Static-shape discipline: the strip length depends only on the *static*
 image shape and the *static* (direction, scale) attempt, so strip extraction
 is a static slice — every attempt compiles to a fixed-shape kernel and a
 whole pair-batch is sliced at once with one gather-free view.

@@ -1,13 +1,13 @@
 """Multi-host runtime bring-up.
 
 The reference is strictly single-process (SURVEY §2.3).  This module owns the
-pod-slice runtime: ``jax.distributed.initialize`` bring-up, the global
-(hosts x chips) mesh, host-sharded dataset ingestion (each host decodes only
-its shard of the sequence), and `multihost_utils` synchronization — ICI
-collectives inside a slice, DCN across slices, no NCCL/MPI.
+multi-host runtime: ``jax.distributed.initialize`` bring-up, the global
+(hosts x devices) mesh, host-sharded dataset ingestion (each host decodes
+only its shard of the sequence), and `multihost_utils` synchronization;
+XLA runs the collectives.
 
 On a single host this degrades to the local mesh transparently, so the same
-driver code runs from a laptop CPU to a pod slice.
+driver code runs from a laptop CPU to a multi-host cluster.
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def initialize(coordinator_address: Optional[str] = None,
                axis: str = "dp") -> RuntimeContext:
     """Bring up the distributed runtime and the global 1-D data mesh.
 
-    With no arguments: auto-detect (TPU pod metadata) when multiple processes
+    With no arguments: auto-detect (cluster environment) when multiple processes
     are configured, else single-process local devices.
     """
     if coordinator_address is not None:

@@ -10,10 +10,10 @@ data-parallel over a ``pairs`` mesh axis.  Two modes:
     description run once per frame with zero communication, then an
     EXPLICIT shard_map ``ppermute`` ships each shard's first frame's
     selected features to its predecessor and matching/voting run on local
-    pairs with sharded outputs.  (r5: the earlier auto-sharded
-    adjacent-slice formulation compiled to full-pool all-gathers — 33-127x
-    the halo bytes; eval/hlo_validation.py caught it, and the compiled
-    collectives now match the ICI model exactly.)
+    pairs with sharded outputs.  (An auto-sharded adjacent-slice
+    formulation compiles to full-pool all-gathers — 33-127x the halo
+    bytes; eval/hlo_validation.py checks the compiled collectives against
+    the one-frame halo.)
 """
 from __future__ import annotations
 
@@ -283,8 +283,7 @@ def feature_step_collectives(images: np.ndarray, mesh: Optional[Mesh],
                              cfg: Optional[StitchConfig] = None,
                              direction: int = 1, ratio: float = 0.5):
     """Compiled-HLO collective counts of the sharded feature step
-    (the scaling harness's hardware-independent evidence; VERDICT r3
-    item 4: the feature sweep published ``collectives: null``)."""
+    (the scaling harness's hardware-independent evidence)."""
     from ..utils import hlo
     _, args = _feature_call_args(images, mesh, cfg, direction, ratio)
     (imgs, max_kp, k_sel, dparams, sparams, metric, search_ratio,

@@ -1,11 +1,11 @@
 """Tensor-parallel 2-D FFT phase correlation (SURVEY §2.3 TP row).
 
 A single oversized overlap strip (reference analog: the whole-image
-cv2.phaseCorrelate call, Stitcher.py:230) can exceed one chip's HBM once
+cv2.phaseCorrelate call, Stitcher.py:230) can exceed one device's memory once
 padded to DFT size.  Here the 2-D FFT is sharded over the mesh: each device
 FFTs its row block along the columns, an ``all_to_all`` re-shards from rows
 to frequency columns, and the column FFT runs locally — the classic
-transpose-decomposed parallel FFT, with XLA collectives riding ICI.  The
+transpose-decomposed parallel FFT, with XLA collectives between devices.  The
 cross-power, inverse transform and peak search stay sharded end to end; no
 device ever materializes the full padded array.
 

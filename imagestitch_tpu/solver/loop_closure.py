@@ -36,7 +36,7 @@ def propose_edges(positions: np.ndarray, image_shape: Tuple[int, int],
     """Candidate (i, j) tile pairs (j > i + 1) whose chain-predicted overlap
     area exceeds ``min_overlap_frac`` of the tile area.
 
-    Spatial-hash candidate generation (VERDICT r2 item 8): tiles are bucketed
+    Spatial-hash candidate generation: tiles are bucketed
     into an (h, w) cell grid by predicted position; two tiles can only
     overlap if their cells are identical or adjacent, so each tile is tested
     against its 3x3 cell neighborhood — O(n * density) instead of the O(n^2)
@@ -118,7 +118,7 @@ def verify_edges(images: np.ndarray, positions: np.ndarray,
     pos = np.round(np.asarray(positions, np.float64)).astype(np.int64)
     d0 = np.stack([pos[j] - pos[i] for i, j in edges])   # (E, 2) prior offset
     e = len(edges)
-    # BUCKETED window sizes (VERDICT r3 weak #6): one global max-size window
+    # BUCKETED window sizes: one global max-size window
     # made every candidate pay the worst case (the 1024-tile stretch spent
     # 3.1 s verifying vs 0.5 s solving).  Per-edge ideal size = predicted
     # overlap + 2*pad capped at ``max_window``, rounded UP to a 128-px

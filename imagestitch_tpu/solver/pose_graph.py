@@ -10,7 +10,7 @@ pose graph solved by weighted least squares:
 The normal equations are a weighted graph Laplacian (two independent systems,
 row/col, solved simultaneously).  Matvec = edge-parallel scatter-adds;
 under ``shard_map`` the edge set is sharded over the mesh and partial
-products are combined with ``psum`` over ICI — the Schur/reduction pattern of
+products are combined with ``psum`` — the Schur/reduction pattern of
 distributed bundle adjustment specialized to translation-only poses.
 
 Conjugate gradients converge in O(graph diameter) iterations for chains and
@@ -125,7 +125,7 @@ def solve(graph: PoseGraph, iters: Optional[int] = None,
     """Solve for absolute poses; pose[0] == (0, 0).
 
     With ``mesh``, edges are sharded over the mesh's first axis and the
-    Laplacian matvec partial-sums ride ``psum`` (ICI on hardware).
+    Laplacian matvec partial-sums ride ``psum``.
     """
     n = graph.n_nodes
     iters = iters if iters is not None else max(2 * n, 64)

@@ -1,7 +1,7 @@
 """Compiled-HLO introspection: collective-op accounting.
 
 The scaling/compose harnesses publish how many cross-device collectives a
-sharded step actually compiles to (VERDICT r2 item 4) — claims like "the
+sharded step actually compiles to — claims like "the
 phase path is communication-free DP" become checkable numbers.
 """
 from __future__ import annotations
@@ -33,7 +33,7 @@ def count_collectives(jitted_fn, *args, **kwargs) -> Dict[str, int]:
     return collective_counts_from_text(texts)
 
 
-# -- collective BYTE accounting (VERDICT r4 item 8) -------------------------
+# -- collective BYTE accounting -------------------------
 
 _DTYPE_BYTES = {"pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2,
                 "f16": 2, "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8,
@@ -60,8 +60,8 @@ def collective_bytes_from_text(hlo: str) -> Dict[str, Dict[str, int]]:
     For each collective instruction, the RESULT shape's bytes: the global
     payload for all-reduce/all-gather, the per-shard output for
     reduce-scatter, the per-hop payload for collective-permute.  Returns
-    ``{op: {count, result_bytes}}`` — the raw numbers the ICI model's ring
-    formulas consume (eval/ici_model.py).
+    ``{op: {count, result_bytes}}`` — the raw numbers ring-collective cost
+    formulas consume.
     """
     out: Dict[str, Dict[str, int]] = {}
     for op in _COLLECTIVES:
@@ -82,9 +82,9 @@ def collective_bytes_from_text(hlo: str) -> Dict[str, Dict[str, int]]:
 
 
 def ring_bytes_per_device(colls: Dict[str, Dict[str, int]], d: int) -> float:
-    """HLO-derived per-device ICI bytes under the same ring-collective cost
-    model the predictions use (eval/ici_model.py formulas applied to the
-    ACTUAL compiled payloads)."""
+    """HLO-derived per-device link bytes under the ring-collective cost
+    model (all-reduce 2(D-1)/D, all-gather (D-1)/D of the payload) applied
+    to the ACTUAL compiled payloads."""
     total = 0.0
     for op, rec in colls.items():
         if op == "total":

@@ -1,16 +1,17 @@
 // stitch_runtime: native host-side runtime for imagestitch_tpu.
 //
-// TPU-native counterpart of the reference's native layer.  The reference
-// used C++/CUDA for feature math and a numpy<->cv::Mat bridge
-// (reference: appendix/myGpuFeatures.cpp, appendix/conversion.cpp); on TPU
-// the feature math lives in XLA/Pallas, so the native layer's job moves to
-// the host runtime: a multithreaded JPEG decode/prefetch pipeline feeding
-// contiguous uint8 batches (the device-transfer boundary), and memcpy-grade
+// Counterpart of the reference's native layer.  The reference used
+// C++/CUDA for feature math and a numpy<->cv::Mat bridge (reference:
+// appendix/myGpuFeatures.cpp, appendix/conversion.cpp); here the feature
+// math lives in XLA, so the native layer's job moves to the host runtime:
+// a multithreaded JPEG decode/prefetch pipeline feeding contiguous uint8
+// batches (the device-transfer boundary), and memcpy-grade
 // canvas composition primitives.
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in this image).
 //
-// Build: make -C native   ->  native/libstitch_runtime.so
+// Build: make -C native   ->  native/libstitch_runtime.so (the loader,
+// io/native_loader.py, builds into native/build/<key>/ itself)
 
 #include <algorithm>
 #include <atomic>
@@ -27,7 +28,9 @@
 #include <thread>
 #include <vector>
 
+#ifndef ISR_NO_JPEG
 #include <jpeglib.h>
+#endif
 
 namespace {
 
@@ -78,8 +81,15 @@ class ThreadPool {
 };
 
 // ---------------------------------------------------------------------------
-// JPEG decode (libjpeg), error-resumable
+// JPEG decode (libjpeg), error-resumable.  Built with -DISR_NO_JPEG where
+// libjpeg's headers are missing: every decode then fails (rc 2) and the
+// Python side decodes instead; the composition kernels are unaffected.
 // ---------------------------------------------------------------------------
+#ifdef ISR_NO_JPEG
+int decode_jpeg_file(const char*, int, uint8_t*, int, int, int*, int*) {
+  return 2;
+}
+#else
 struct JpegErr {
   jpeg_error_mgr mgr;
   jmp_buf jump;
@@ -138,10 +148,20 @@ int decode_jpeg_file(const char* path, int color, uint8_t* out, int expect_h,
   fclose(f);
   return 0;
 }
+#endif  // ISR_NO_JPEG
 
 }  // namespace
 
 extern "C" {
+
+// 1 when built with libjpeg (isr_probe / isr_load_batch can decode).
+int isr_has_jpeg() {
+#ifdef ISR_NO_JPEG
+  return 0;
+#else
+  return 1;
+#endif
+}
 
 // Probe image dimensions without decoding pixel data.
 int isr_probe(const char* path, int* h, int* w) {
@@ -492,6 +512,6 @@ void isr_finalize16(const int16_t* canvas, uint8_t* out, long long n,
 }
 
 // Version tag for the ctypes wrapper's sanity check.
-int isr_version() { return 2; }
+int isr_version() { return 3; }
 
 }  // extern "C"

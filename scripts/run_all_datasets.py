@@ -1,10 +1,10 @@
-"""The reference driver's full workload (Main.py:4-51) on TPU, end to end.
+"""The reference driver's full workload (Main.py:4-51), end to end.
 
 Runs all six demo datasets through the Stitcher with the reference's
 per-dataset configuration — registration strategy, direction, direction
 increment, color mode — writing panoramas to disk exactly as
 imageSetStitchWithMutiple does, and records wall times + output shapes to
-baselines/demo_driver_tpu.json.  The "switch from the reference" receipt:
+baselines/demo_driver.json.  The "switch from the reference" receipt:
 same inputs, same knobs, same outputs, one command.
 """
 import json
@@ -18,7 +18,7 @@ import numpy as np
 
 DEMO = "/root/reference/demoImages"
 OUT_JSON = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "baselines", "demo_driver_tpu.json")
+    os.path.abspath(__file__))), "baselines", "demo_driver.json")
 
 # Main.py:17-51 per-dataset knobs (registration method, direction,
 # directIncre); isColorMode=True globally (Main.py:6); fuseMethod
@@ -70,7 +70,10 @@ def main():
 
     payload = {
         "what": "reference Main.py workload, all six demo datasets, color, "
-                "TPU registration + stream-output host composition",
+                "device registration + stream-output host composition",
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind,
+                   "count": len(jax.devices())},
         "backend_init_s": round(backend_s, 1),
         "total_wall_s": round(time.time() - t_all, 2),
         "datasets": rows,

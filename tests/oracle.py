@@ -2,7 +2,7 @@
 the reference's np.ones defaults are), used as the behavioral
 spec for unit tests.  Each function re-states the documented algorithm of the
 cited reference lines with plain Python loops (independently written; serves
-to pin the TPU kernels' exact semantics).
+to pin the device kernels' exact semantics).
 """
 from __future__ import annotations
 

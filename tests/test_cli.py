@@ -90,8 +90,8 @@ def test_cli_platform_flag_selects_backend(tmp_path):
 
     Runs in a SUBPROCESS: jax caches backends on first use, so an in-process
     assertion after the suite has already dispatched would only ever see the
-    conftest's backend (advisor r3 — the old in-process form was a no-op
-    check).  The child asserts the backend itself after the stitch."""
+    conftest's backend.  The child asserts the backend itself after the
+    stitch."""
     import subprocess
     import sys
 
@@ -122,7 +122,7 @@ def test_cli_platform_flag_selects_backend(tmp_path):
 
 def test_cli_platform_flag_fails_loudly_after_backend_init(tmp_path):
     """Once a backend is initialized in-process, --platform for a DIFFERENT
-    platform must error instead of silently doing nothing (advisor r3)."""
+    platform must error instead of silently doing nothing."""
     import jax
     import jax.numpy as jnp
 
@@ -130,4 +130,22 @@ def test_cli_platform_flag_fails_loudly_after_backend_init(tmp_path):
     proj, _ = _make_strip_project(tmp_path)
     with pytest.raises(SystemExit, match="already"):
         cli.main(["stitch", proj, str(tmp_path / "out"),
-                  "--file-extension", "png", "--platform", "tpu"])
+                  "--file-extension", "png", "--platform", "gpu"])
+
+
+def test_cli_platform_flag_accepts_the_live_backend(tmp_path):
+    """With the backend already up, naming that same platform is valid
+    and the stitch runs in-process."""
+    import jax
+    import jax.numpy as jnp
+
+    np.asarray(jnp.zeros(1))
+    proj, master = _make_strip_project(tmp_path)
+    out = str(tmp_path / "out")
+    rc = cli.main(["stitch", proj, out, "--file-extension", "png",
+                   "--output-extension", "png", "--registration",
+                   "phase_incre", "--direct-incre", "0", "--roi-ratio", "0.4",
+                   "--gray", "--fuse-method", "notFuse", "--quiet",
+                   "--platform", jax.devices()[0].platform])
+    assert rc == 0
+    assert os.path.exists(os.path.join(out, "stitching_result_1.png"))

@@ -64,7 +64,7 @@ def _blob_strip_sequence(rng, n, h=128, w=192, step=60):
 
 def test_feature_step_sharded_matches_unsharded():
     """The flagship feature pipeline runs sharded over the mesh and agrees
-    with the single-device result (VERDICT r1 item 5)."""
+    with the single-device result."""
     rng = np.random.default_rng(5)
     images = _blob_strip_sequence(rng, 9)
     mesh = make_mesh(8, axis="pairs")

@@ -1,4 +1,4 @@
-"""ICI-bytes model vs compiled HLO (VERDICT r4 item 8).
+"""Collective-bytes model vs compiled HLO.
 
 The analytic model's payload assumptions must match what XLA actually
 compiles, at several mesh widths.  Before round 5 the feature step FAILED

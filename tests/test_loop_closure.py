@@ -1,4 +1,4 @@
-"""Loop-closure edges kill serpentine drift (VERDICT r1 item 6).
+"""Loop-closure edges kill serpentine drift.
 
 Synthetic serpentine grid cut from one textured field: the chain
 measurements carry injected noise (the reference's prefix-sum would
@@ -72,9 +72,9 @@ def test_propose_edges_skips_non_overlapping():
 
 
 def test_real_dendritic_subset_solver_beats_chain():
-    """VERDICT r2 item 6: e2e solver evidence on REAL dendritic frames — a
+    """e2e solver evidence on REAL dendritic frames — a
     14-frame subset spanning the first serpentine row transition (2x
-    block-mean downsampled for CPU test speed; the committed TPU artifact
+    block-mean downsampled for CPU test speed; the committed artifact
     baselines/drift_dendritic.json runs full resolution).  The solved
     positions must explain the measured loop-closure overlaps better than
     the reference-style prefix-sum chain."""

@@ -1,4 +1,4 @@
-"""Mesh-distributed flagship registration + driver (VERDICT r2 items 2/3).
+"""Mesh-distributed flagship registration + driver.
 
 The sharded pooled path must equal the single-device pooled path exactly
 (same math, different partitioning), and the ONE driver (Stitcher with a
@@ -79,7 +79,7 @@ def test_sharded_whole_image_equals_unsharded(seq):
 
 
 def test_driver_mesh_panorama_equals_single_device(seq, tmp_path):
-    """VERDICT r2 item 2: the ONE driver, end-to-end, mesh == single."""
+    """The ONE driver, end-to-end, mesh == single."""
     images, _ = seq
     cfg = _cfg()
     single = Stitcher(cfg).stitch_batch(

@@ -1,4 +1,4 @@
-"""Host pipeline parallelism: decode-overlapped registration (VERDICT r1 item 7)."""
+"""Host pipeline parallelism: decode-overlapped registration."""
 import os
 
 import numpy as np

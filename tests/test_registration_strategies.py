@@ -1,4 +1,4 @@
-"""Every --registration strategy end-to-end (VERDICT r1 item 1).
+"""Every --registration strategy end-to-end.
 
 Round 1 shipped a crashing ``phase`` path because no test constructed it;
 this module runs all five strategies through the Stitcher dispatch on
@@ -50,7 +50,7 @@ def test_strategy_recovers_known_offsets(strategy):
 
 
 def test_hybrid_fallback_evaluates_only_failed_pairs():
-    """VERDICT r2 item 9: the phase fallback must dispatch over the FAILED
+    """The phase fallback must dispatch over the FAILED
     pair subset, not re-sweep the whole sequence (wrong shape at 1000 tiles).
     """
     from imagestitch_tpu.core import registration as reg

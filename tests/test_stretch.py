@@ -1,4 +1,4 @@
-"""Stretch-config pipeline (BASELINE stretch row; VERDICT r2 item 8)."""
+"""Stretch-config pipeline (BASELINE stretch row)."""
 import numpy as np
 
 from imagestitch_tpu.eval import stretch
@@ -67,10 +67,10 @@ def test_stretch_pipeline_small_grid():
 
 
 def test_stretch_realsize_sharded_equals_single():
-    """Production-scale shapes through the sharded path (VERDICT r4 item
-    10): FULL-RESOLUTION demo tiles (1936 x 2584) registered by the
-    pooled-sharded flagship on the virtual 8-mesh and composed on the
-    sharded canvas must equal the single-device result bit-for-bit —
+    """Production-scale shapes through the sharded path: FULL-RESOLUTION
+    demo tiles (1936 x 2584) registered by the pooled-sharded flagship on
+    the virtual 8-mesh and composed on the sharded canvas must equal the
+    single-device result bit-for-bit —
     extending the dryrun's guarantee from tiny shapes to the real-size
     stretch configuration (tile count scaled down for CPU wall-clock; the
     per-tile shapes and code paths are the production ones)."""

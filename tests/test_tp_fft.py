@@ -1,4 +1,4 @@
-"""Tensor-parallel sharded FFT phase correlation (VERDICT r1 item 9)."""
+"""Tensor-parallel sharded FFT phase correlation."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -50,7 +50,7 @@ def test_auto_dispatch_uses_sharded_over_budget():
 
 
 def test_whole_phase_routes_through_tp_fft_over_budget():
-    """Driver wiring (VERDICT r2 item 2): with a mesh and a tiny HBM budget
+    """Driver wiring: with a mesh and a tiny HBM budget
     the whole-image phase path runs the tensor-parallel sharded FFT and
     matches the single-device offsets."""
     import numpy as np
